@@ -1,6 +1,6 @@
 // Native BVH builder: preorder flat skip-pointer layout.
 //
-// TPU-native framework's equivalent of the C++/CUDA LBVH that warp-lang
+// rfx's equivalent of the C++/CUDA LBVH that warp-lang
 // builds inside wp.Mesh (reference tracer.py:24 calls into the warp
 // dependency; there is no native code in the reference repo itself). Output
 // layout matches rfx/bvh.py's NumPy builder exactly (DFS preorder nodes,

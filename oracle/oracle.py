@@ -5,7 +5,7 @@ exact physics of the reference implementation (SURVEY.md section 2.1):
 
 - Ray spawn: isotropic point source at tx_pos (ref kernel.py:51-52). The
   oracle takes an explicit (N, 3) direction array so the same rays can be
-  injected into the TPU tracer for allclose validation (the reference's Warp
+  injected into the JAX tracer for allclose validation (the reference's Warp
   counter-based PRNG is intentionally not replicated bit-exactly).
 - Bounce loop: per bounce, closest-hit query against the receiver mesh and the
   environment mesh; the receiver wins iff it is hit AND (env missed OR
@@ -36,7 +36,7 @@ from rfx.geometry import TriangleMesh, icosphere
 # Minimum hit distance: rays re-traced from a surface need an epsilon to avoid
 # re-hitting the originating face. The reference delegates this to warp
 # internals (SURVEY.md 2.2); we make it explicit and use the same value in the
-# TPU tracer so oracle and tracer agree exactly.
+# JAX tracer so oracle and tracer agree exactly.
 T_MIN_EPS = 1e-4
 T_MAX = 1.0e6
 
@@ -45,7 +45,7 @@ def sample_sphere_directions(n: int, seed: int = 0) -> np.ndarray:
     """Uniform directions on the unit sphere via (z, phi) sampling, float32.
 
     Not bit-compatible with Warp's sampler (ref kernel.py:51-52) — both the
-    oracle and the TPU tracer consume explicit direction arrays instead.
+    oracle and the JAX tracer consume explicit direction arrays instead.
     """
     rng = np.random.default_rng(seed)
     z = rng.uniform(-1.0, 1.0, size=n)
@@ -87,7 +87,7 @@ def ray_triangles_closest_hit(
     """Brute-force Moller-Trumbore closest hit of one ray against all
     triangles. Returns (t, face_index); (inf, -1) on miss.
 
-    TPU-native equivalent of warp's `wp.mesh_query_ray` (ref kernel.py:71,82),
+    Equivalent of warp's `wp.mesh_query_ray` (ref kernel.py:71,82),
     without the BVH — the oracle is the gold standard, not the fast path.
     """
     pvec = np.cross(direction[None, :], tri_e2)
@@ -165,7 +165,7 @@ class OracleTracer:
         # appends the chord through the sphere to the recorded path), and an
         # escaped ray keeps re-issuing the same missing queries. False (the
         # default) implements the INTENDED persistent termination semantics —
-        # what the TPU tracer and every parity test use (SURVEY.md 2.2).
+        # what the JAX tracer and every parity test use (SURVEY.md 2.2).
         self.warp_quirk_compat = bool(warp_quirk_compat)
 
     # -- receiver intersection ------------------------------------------------

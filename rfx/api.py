@@ -29,13 +29,24 @@ from rfx.ops.intersect import make_env_intersector
 from rfx.tracer import Scene, extract_paths, trace_to_rx
 from rfx.utils.logging import get_logger, log_trace_stats
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "choose_backend", "BRUTE_MAX_FACES"]
 
-_LANE_MULTIPLE = 1024  # pad ray batches for clean TPU tiling
+#: Meshes up to this many triangles take the brute-force intersector on
+#: every platform: testing all of them is cheaper than walking a tree.
+BRUTE_MAX_FACES = 2048
+
+
+def choose_backend(platform: str, num_faces: int) -> str:
+    """The intersector `backend="auto"` picks: 'brute' for small meshes,
+    the per-ray GPU kernel ('triton') on a GPU, the jnp BVH walk ('bvh')
+    elsewhere (the kernel's interpreter is far slower than XLA's CPU code)."""
+    if num_faces <= BRUTE_MAX_FACES:
+        return "brute"
+    return "triton" if platform == "gpu" else "bvh"
 
 
 class Tracer:
-    """Differentiable TPU RF ray tracer with the reference's call shape."""
+    """Differentiable RF ray tracer with the reference's call shape."""
 
     def __init__(
         self,
@@ -51,10 +62,7 @@ class Tracer:
         rx_mode: str = "analytic",
         backend: str = "auto",
         seed: int = 0,
-        interpret: bool = False,
     ):
-        # `interpret=True` runs the Pallas kernels in interpreter mode (CI on
-        # CPU exercises the exact facade paths the TPU runs compiled).
         # rx_mode default matches TraceConfig ("analytic" = exact sphere —
         # faster and exact; the coverage engine only supports it). Pass
         # "icosphere" for the reference's 80-face tessellation when strict
@@ -74,34 +82,11 @@ class Tracer:
         self.log = get_logger("rfx.api")
 
         if backend == "auto":
-            # Brute-force Moller-Trumbore is the right call for small meshes.
-            # Above ~2k triangles, the flagship Pallas traversal kernel is the
-            # default on real accelerators (mirroring the reference, where the
-            # fast path IS the default path, ref tracer.py:75-79); the jnp
-            # while-loop BVH walk remains the CPU default (Pallas interpret
-            # mode is far slower than compiled XLA there).
-            if environment.num_faces <= 2048:
-                backend = "brute"
-            else:
-                on_accel = jax.devices()[0].platform != "cpu"
-                backend = "pallas" if on_accel else "bvh"
+            # The fast path IS the default path, as in the reference
+            # (ref tracer.py:75-79).
+            backend = choose_backend(jax.devices()[0].platform, environment.num_faces)
         self.backend = backend
-        env_kw = {"interpret": True} if (interpret and backend == "pallas") else {}
-        self.env_hit = make_env_intersector(backend, mesh=environment, **env_kw)
-
-        # Flagship forward path: the fused multi-bounce megakernel keeps the
-        # whole bounce loop's ray state in VMEM (rfx.ops.pallas_fused; ~35%
-        # faster than the per-query scan loop on TPU). It bakes in the
-        # analytic receiver sphere and records no paths, so the scan path
-        # remains the fallback for record_paths=True, icosphere parity mode,
-        # and gradients.
-        self._fused = None
-        if backend == "pallas" and rx_mode == "analytic":
-            from rfx.ops.pallas_fused import make_fused_tracer
-
-            self._fused = make_fused_tracer(environment, max_bounces=self.max_bounces,
-                                            interpret=interpret)
-            self._fused_cir_fn = jax.jit(self._fused_cir_impl)
+        self.env_hit = make_env_intersector(backend, mesh=environment)
 
         self._cir_fn = jax.jit(
             partial(
@@ -113,7 +98,7 @@ class Tracer:
 
     # -- internals ------------------------------------------------------------
     def _cir_impl(self, vertices, faces, tx_pos, tx_power, rx_pos, rx_radius,
-                  directions, active, *, record_paths: bool):
+                  directions, *, record_paths: bool):
         scene = Scene(vertices, faces)
         result = trace_to_rx(
             scene,
@@ -127,7 +112,6 @@ class Tracer:
             rx_mode=self.rx_mode,
             env_hit=self.env_hit,
             record_paths=record_paths,
-            active=active,
         )
         ir = cir_mod.cir_from_trace(
             result,
@@ -139,28 +123,13 @@ class Tracer:
         )
         return result, ir
 
-    def _fused_cir_impl(self, tx_pos, tx_power, rx_pos, rx_radius, directions):
-        result = self._fused(directions, tx_pos, rx_pos, rx_radius,
-                             n1=self.n1, n2=self.n2)
-        ir = cir_mod.cir_from_trace(
-            result,
-            tx_power=tx_power,
-            num_rays=self.tx_num_rays,
-            nbins=self.nbins,
-            light_speed_mps=self.light_speed_mps,
-            sample_rate_hz=self.sample_rate_hz,
-        )
-        return result.captured.sum(), ir
-
     def _directions(self, directions):
         if directions is None:
             self.key, sub = jax.random.split(self.key)
-            dirs = sampler.sphere_directions(sub, self.tx_num_rays)
-        else:
-            dirs = jnp.asarray(directions, jnp.float32)
-        padded, n_valid = sampler.pad_directions(dirs, _LANE_MULTIPLE)
-        active = jnp.arange(padded.shape[0]) < n_valid
-        return padded, active
+            # Morton order: same law as sphere_directions, but consecutive
+            # rays share a direction cone, which the GPU kernel's blocks need.
+            return sampler.morton_sphere_directions(sub, self.tx_num_rays)
+        return jnp.asarray(directions, jnp.float32)
 
     # -- reference-parity API -------------------------------------------------
     #: record_paths="auto" records paths only for batches at or below this
@@ -183,15 +152,9 @@ class Tracer:
         "auto" keeps the drop-in contract for interactive batch sizes
         (<= AUTO_PATHS_MAX_RAYS rays record paths like the reference) while
         large batches skip recording and return `paths == []`. Pass
-        True/False to force either behavior.
-
-        Performance cliff (documented): the fused megakernel forward path is
-        only used when backend='pallas', rx_mode='analytic', AND
-        record_paths=False. record_paths=True, icosphere parity mode, or
-        differentiating through the trace all fall back to the ~35%-slower
-        per-query scan tracer (and record_paths additionally materializes the
-        path buffer). For viz, prefer a second small-ray-count record_paths
-        call over recording paths on the full batch.
+        True/False to force either behavior. For viz, prefer a second
+        small-ray-count record_paths call over recording paths on the full
+        batch.
         """
         import time
 
@@ -200,26 +163,7 @@ class Tracer:
             n_req = (self.tx_num_rays if directions is None
                      else int(np.shape(directions)[0]))
             record_paths = n_req <= self.AUTO_PATHS_MAX_RAYS
-        if self._fused is not None and not record_paths:
-            if directions is None:
-                self.key, sub = jax.random.split(self.key)
-                dirs = sampler.sphere_directions(sub, self.tx_num_rays)
-            else:
-                dirs = jnp.asarray(directions, jnp.float32)
-            ncap, ir = self._fused_cir_fn(
-                jnp.asarray(tx_pos, jnp.float32),
-                jnp.asarray(tx_power, jnp.float32),
-                jnp.asarray(rx_pos, jnp.float32),
-                jnp.asarray(rx_radius, jnp.float32),
-                dirs,
-            )
-            ir = jax.block_until_ready(ir)
-            elapsed = time.perf_counter() - t0
-            log_trace_stats(self.log, n_rays=int(dirs.shape[0]),
-                            bounces=self.max_bounces, captured=int(ncap),
-                            seconds=elapsed)
-            return [], np.asarray(ir)
-        dirs, active = self._directions(directions)
+        dirs = self._directions(directions)
         fn = self._cir_paths_fn if record_paths else self._cir_fn
         result, ir = fn(
             self.scene.vertices,
@@ -229,7 +173,6 @@ class Tracer:
             jnp.asarray(rx_pos, jnp.float32),
             jnp.asarray(rx_radius, jnp.float32),
             dirs,
-            active,
         )
         ir = jax.block_until_ready(ir)
         elapsed = time.perf_counter() - t0
@@ -247,16 +190,13 @@ class Tracer:
                          directions=None, rx_batch: int = 64):
         """(M, nbins) impulse responses for M receivers from a single trace.
 
-        Inherits this Tracer's rx_mode. Performance note (documented cliff):
-        rx_mode="icosphere" (the reference's 80-face tessellation,
-        ref tracer.py:26-30) runs only through the slow map engine — measured
-        ~8x the analytic engine's cost at the reference 2048-receiver
-        workload (~71 s vs 6.7 s warm on v5e, COVERAGE_EXACT_r04) — because
-        the batched Pallas histogram kernel bakes in the analytic sphere.
-        Use the default rx_mode="analytic" unless strict geometric parity
-        with the reference's tessellated receiver is required (the two agree
-        to ~1-2% capture cross-section, tests/test_oracle.py)."""
-        dirs, active = self._directions(directions)
+        Inherits this Tracer's rx_mode. rx_mode="icosphere" (the reference's
+        80-face tessellation, ref tracer.py:26-30) tests 80 triangles per
+        segment per receiver instead of one sphere; use the default
+        "analytic" unless strict geometric parity with the reference's
+        tessellated receiver is required (the two agree to ~1-2% capture
+        cross-section, tests/test_oracle.py)."""
+        dirs = self._directions(directions)
         irs = coverage_irs(
             self.scene,
             jnp.asarray(tx_pos, jnp.float32),
@@ -273,7 +213,6 @@ class Tracer:
             n2=self.n2,
             rx_batch=rx_batch,
             env_hit=self.env_hit,
-            active=active,
             rx_mode=self.rx_mode,
         )
         return np.asarray(jax.block_until_ready(irs))
@@ -283,7 +222,7 @@ class Tracer:
                                   rx_batch: int = 64):
         """(M,) dBm per receiver via the phasor fast path (no per-RX impulse
         response; see rfx.coverage.coverage_dbm_fast for speed/accuracy)."""
-        dirs, active = self._directions(directions)
+        dirs = self._directions(directions)
         dbm = coverage_dbm_fast(
             self.scene,
             jnp.asarray(tx_pos, jnp.float32),
@@ -301,7 +240,6 @@ class Tracer:
             n2=self.n2,
             rx_batch=rx_batch,
             env_hit=self.env_hit,
-            active=active,
         )
         return np.asarray(jax.block_until_ready(dbm))
 
@@ -319,7 +257,7 @@ class Tracer:
         cheaper than the padded subset and strictly more accurate."""
         from rfx.coverage import coverage_dbm_hybrid
 
-        dirs, active = self._directions(directions)
+        dirs = self._directions(directions)
         dbm, n_flagged = coverage_dbm_hybrid(
             self.scene,
             jnp.asarray(tx_pos, jnp.float32),
@@ -337,7 +275,6 @@ class Tracer:
             n2=self.n2,
             rx_batch=rx_batch,
             env_hit=self.env_hit,
-            active=active,
             cancel_threshold=cancel_threshold,
             spread_threshold_s=spread_threshold_s,
             exact_fallback_frac=exact_fallback_frac,

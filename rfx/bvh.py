@@ -1,9 +1,9 @@
 """BVH construction (host side) -> flat skip-pointer arrays for the device.
 
-TPU-native replacement for the BVH that warp builds inside `wp.Mesh`
-(ref tracer.py:24 — C++/CUDA LBVH in the warp-lang dependency). The traversal
-consumers (rfx.ops.bvh_traverse jnp reference, rfx.ops.pallas_trace kernel)
-want a *stackless* linear layout:
+Replacement for the BVH that warp builds inside `wp.Mesh` (ref tracer.py:24 —
+C++/CUDA LBVH in the warp-lang dependency). The traversal consumers
+(rfx.ops.bvh_traverse jnp walk, rfx.ops.gpu_trace kernel) want a *stackless*
+linear layout:
 
 - nodes stored in DFS preorder;
 - internal node: on AABB hit continue to node i+1, on miss jump to skip[i];
@@ -99,10 +99,7 @@ def _sah_split(order, lo, hi, centroids, bounds_min, bounds_max):
 
     Minimizes SA_L * n_L + SA_R * n_R over bin boundaries — tighter child
     boxes than the median split (15% lower total node surface area on the
-    terrain scene), which matters doubly for the tile-uniform Pallas walk: a
-    tile visits the UNION of nodes any of its rays hits, so box overlap
-    compounds across the tile. Measured: ~3.5% fewer device-ms summed over
-    the first three bounce states vs median — modest, and free at trace time.
+    terrain scene): fewer node visits per ray, free at trace time.
     """
     sel_idx = order[lo:hi]
     c = centroids[sel_idx]
@@ -161,19 +158,15 @@ def _sah_split(order, lo, hi, centroids, bounds_min, bounds_max):
 
 
 def collapse_bvh(flat: FlatBVH, arity: int) -> FlatBVH:
-    """Collapse a binary skip-pointer BVH into an n-ary one (round-5 walk
-    optimization): repeatedly replace an internal child by its own children
+    """Collapse a binary skip-pointer BVH into an n-ary one: repeatedly replace an internal child by its own children
     (largest-surface-area child first) until each node has up to `arity`
     children, then re-emit preorder + skip pointers.
 
     Leaves — and therefore the padded triangle SoA — are untouched; only the
     internal-node set shrinks (binary: L-1 internals for L leaves; n-ary:
-    ~(L-1)/(arity-1)). The tile-uniform Pallas walk visits preorder nodes in
-    speculative windows at a roughly fixed cost per window regardless of how
-    many node tests are useful (PROFILE_r04 revised roofline), so fewer,
-    fatter nodes => fewer windows => faster walk. Traversal results are
-    identical by construction (same leaves, each still guarded by its own
-    AABB; only intermediate culling levels are removed).
+    ~(L-1)/(arity-1)). Traversal results are identical by construction
+    (same leaves, each still guarded by its own AABB; only intermediate
+    culling levels are removed).
     """
     if arity <= 2:
         return flat
@@ -241,7 +234,7 @@ def build_bvh(
         # The native (C++) SAH builder produces the same tree quality at a
         # fraction of the host build time; the numpy path remains the
         # reference. Cross over where the numpy build time becomes material
-        # (~100k tris; measured 29.9 s at 1M tris in LARGEMESH_r04).
+        # (~100k tris; about 30 s at 1M tris).
         from rfx.ops import native_lib
 
         if mesh.num_faces > 100_000 and native_lib.native_available():

@@ -3,9 +3,10 @@
 The reference accumulates the CIR on the host in a Python loop over paths
 (ref tracer.py:101-117) and derives RX power by convolving with a carrier
 sine on the CPU (ref main.py:46-55). Both run here as vectorised XLA ops:
-binning is a scatter-add (deterministic on TPU), the convolution is a direct
-`lax.conv` so exact zeros stay exactly zero (parity with np.convolve's
-nonzero-sample selection; an FFT path would fill zeros with roundoff noise).
+binning is a scatter-add (atomic on the GPU, so its summation order, and the
+last bits of a bin, change from run to run: compare IRs with a tolerance),
+the convolution a `lax.conv` at HIGHEST precision whose nonzero-sample
+selection is held to the structural support of the IR (see rx_power_dbm).
 """
 
 from __future__ import annotations
@@ -17,61 +18,6 @@ import jax.numpy as jnp
 
 __all__ = ["bin_impulse_response", "cir_from_trace", "rx_power_dbm", "rx_power_dbm_phasor", "to_dbm"]
 
-# Precision for the map engine's one-hot selection-sum matmuls. TPU DEFAULT
-# truncates f32 operands toward bf16 (~0.15% bin error, measured). HIGH
-# (3 bf16 passes) is exact here: the one-hot operand's {0,1} values decompose
-# into bf16 with zero residual, so every partial product is exact and the f32
-# accumulation sums the same nonzero values in the same order as HIGHEST — at
-# half HIGHEST's cost. The Pallas coverage kernel uses HIGHEST for the same
-# sums only because Mosaic cannot lower HIGH in-kernel ("Unsupported dot
-# precision: HIGH", measured round 5); by the argument above the two engines
-# still produce bit-equivalent bins.
-BINNING_PRECISION = jax.lax.Precision.HIGH
-
-
-def _bincount_matmul(bins: jnp.ndarray, weights: jnp.ndarray, nbins: int) -> jnp.ndarray:
-    """Weighted histogram as two one-hot matmuls (MXU) instead of scatter-add.
-
-    XLA's TPU scatter processes updates at ~130M/s (measured: 40.7 ms for the
-    flagship 5.2M-ray x 20k-bin IR — a third of the whole trace). Decomposing
-    bin = q*128 + r turns the histogram into IR[q, r] = sum_n w_n [q_n==q][r_n==r]
-    = (onehot_q * w) @ onehot_r^T — dense MXU work in f32 (measured ~4 ms).
-    Rays are chunked so the one-hot intermediates stay bounded. Invalid bins
-    must already be masked to weight 0 AND clipped into range by the caller.
-
-    Exact same values as the scatter path up to f32 summation order;
-    deterministic (fixed chunking and reduction order).
-    """
-    q_size = -(-nbins // 128)
-    n = bins.shape[0]
-    chunk = 262_144
-    if n % chunk:
-        pad = (-n) % chunk
-        bins = jnp.concatenate([bins, jnp.zeros((pad,), bins.dtype)])
-        weights = jnp.concatenate([weights, jnp.zeros((pad,), weights.dtype)])
-        n = bins.shape[0]
-    n_chunks = n // chunk
-    qs = (bins // 128).reshape(n_chunks, chunk)
-    rs = (bins % 128).reshape(n_chunks, chunk)
-    ws = weights.reshape(n_chunks, chunk)
-    qi = jnp.arange(q_size, dtype=bins.dtype)
-    ri = jnp.arange(128, dtype=bins.dtype)
-
-    def step(acc, args):
-        q, r, w = args
-        a = jnp.where(q[None, :] == qi[:, None], w[None, :], 0.0)  # (Q, C)
-        b = (r[None, :] == ri[:, None]).astype(w.dtype)  # (128, C)
-        # See BINNING_PRECISION: exact for one-hot selection sums.
-        return acc + jax.lax.dot_general(
-            a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-            precision=BINNING_PRECISION,
-        ), None
-
-    acc0 = jnp.zeros((q_size, 128), jnp.float32)
-    acc, _ = jax.lax.scan(step, acc0, (qs, rs, ws))
-    return acc.reshape(q_size * 128)[:nbins]
-
-
 def bin_impulse_response(
     amplitude: jnp.ndarray,
     distance: jnp.ndarray,
@@ -81,7 +27,6 @@ def bin_impulse_response(
     light_speed_mps: float,
     sample_rate_hz: float,
     soft: bool = False,
-    method: str = "auto",
 ):
     """Scatter per-path amplitudes into delay bins.
 
@@ -91,40 +36,28 @@ def bin_impulse_response(
     neighbouring bins so d(IR)/d(distance) is nonzero — required for delay
     gradients in the inverse solve (hard binning is piecewise constant).
 
-    method: 'scatter' (XLA scatter-add), 'matmul' (one-hot MXU histogram,
-    ~10x faster on TPU for multi-million-ray batches), or 'auto' (matmul on
-    TPU for large batches, scatter otherwise).
+    Paths outside the window (and uncaptured rays) are sent to index
+    `nbins`, which the scatter drops: they never contend for a real bin's
+    atomic add.
     """
     delay = distance / light_speed_mps * sample_rate_hz
     amp = jnp.where(captured, amplitude, 0.0)
-    if method == "auto":
-        on_tpu = jax.devices()[0].platform != "cpu"
-        method = "matmul" if (on_tpu and amplitude.shape[0] >= 65536) else "scatter"
+
+    def add(ir, bins, valid, weight):
+        return ir.at[jnp.where(valid, bins, nbins)].add(weight, mode="drop")
+
+    ir = jnp.zeros((nbins,), amp.dtype)
     if soft:
         lo = jnp.floor(delay)
         w = delay - lo
         lo_i = lo.astype(jnp.int32)
         valid_lo = captured & (lo_i >= 0) & (lo_i < nbins)
         valid_hi = captured & (lo_i + 1 >= 0) & (lo_i + 1 < nbins)
-        if method == "matmul":
-            ir = _bincount_matmul(
-                jnp.clip(lo_i, 0, nbins - 1), jnp.where(valid_lo, amp * (1.0 - w), 0.0), nbins
-            )
-            return ir + _bincount_matmul(
-                jnp.clip(lo_i + 1, 0, nbins - 1), jnp.where(valid_hi, amp * w, 0.0), nbins
-            )
-        ir = jnp.zeros((nbins,), amp.dtype)
-        ir = ir.at[jnp.clip(lo_i, 0, nbins - 1)].add(jnp.where(valid_lo, amp * (1.0 - w), 0.0))
-        ir = ir.at[jnp.clip(lo_i + 1, 0, nbins - 1)].add(jnp.where(valid_hi, amp * w, 0.0))
-        return ir
+        ir = add(ir, lo_i, valid_lo, amp * (1.0 - w))
+        return add(ir, lo_i + 1, valid_hi, amp * w)
     bins = delay.astype(jnp.int32)  # truncation toward zero, matches int()
     valid = captured & (bins >= 0) & (bins < nbins)
-    if method == "matmul":
-        return _bincount_matmul(
-            jnp.clip(bins, 0, nbins - 1), jnp.where(valid, amp, 0.0), nbins
-        )
-    ir = jnp.zeros((nbins,), amp.dtype)
-    return ir.at[jnp.clip(bins, 0, nbins - 1)].add(jnp.where(valid, amp, 0.0))
+    return add(ir, bins, valid, amp)
 
 
 def cir_from_trace(
@@ -136,7 +69,6 @@ def cir_from_trace(
     light_speed_mps: float,
     sample_rate_hz: float,
     soft: bool = False,
-    method: str = "auto",
 ):
     """TraceResult -> impulse response. Per-path amplitude starts at
     tx_power / N (ref tracer.py:103) times the accumulated Fresnel product."""
@@ -149,7 +81,6 @@ def cir_from_trace(
         light_speed_mps=light_speed_mps,
         sample_rate_hz=sample_rate_hz,
         soft=soft,
-        method=method,
     )
 
 
@@ -168,6 +99,13 @@ def rx_power_dbm(
 
     Accepts (nbins,) or a batched (M, nbins) IR (the coverage engine).
     Returns -inf dBm where nothing was received.
+
+    The mean runs over output samples that are nonzero AND inside the IR's
+    structural support (samples some nonzero bin reaches through the kernel
+    window). On the CPU the direct convolution leaves every sample outside
+    it exactly zero, so the mask changes nothing; a GPU convolution
+    algorithm (FFT, Winograd) may leave roundoff there instead, which the
+    mask keeps out of the count.
     """
     squeeze = impulse_response.ndim == 1
     ir = jnp.atleast_2d(impulse_response)
@@ -187,10 +125,18 @@ def rx_power_dbm(
         window_strides=(1,),
         padding=[(nbins - 1 - lo, nbins - 1 - hi)],
         dimension_numbers=("NCH", "OIH", "NCH"),
+        precision=jax.lax.Precision.HIGHEST,
     )[:, 0, :]
     # 'same' trimming: np takes indices [lo, lo+nbins) of the full conv; the
-    # padding above already yields exactly nbins outputs starting at lo.
-    nz = out != 0.0
+    # padding above already yields exactly nbins outputs starting at lo, and
+    # out[n] = sum_k ir[k] * kernel[n + lo - k]: bin k reaches outputs
+    # [k - lo, k - lo + nbins - 1].
+    idx = jnp.arange(nbins)
+    nzk = ir != 0.0
+    k_first = jnp.min(jnp.where(nzk, idx, nbins), axis=1, keepdims=True)
+    k_last = jnp.max(jnp.where(nzk, idx, -1), axis=1, keepdims=True)
+    support = (idx >= k_first - lo) & (idx <= k_last - lo + nbins - 1)
+    nz = (out != 0.0) & support
     count = jnp.sum(nz, axis=1)
     power = jnp.where(
         count > 0, jnp.sum(jnp.where(nz, out**2, 0.0), axis=1) / jnp.maximum(count, 1), 0.0
@@ -222,8 +168,7 @@ def rx_power_dbm_phasor(
     so mean(signal^2) ~ |A|^2 / 2 exactly, up to 'same'-mode edge truncation
     (sub-0.2 dB when path delays sit well inside the window; validated
     against the exact path in tests). This turns the coverage engine's
-    per-receiver scatter-add (the dominant cost: ~18 ms per 2M segments on
-    v5e, x2048 receivers) into a pure reduction.
+    per-receiver scatter-add into a pure reduction.
 
     Delay quantization matches the binned IR exactly: bin = int(d/c * rate),
     t_k = bin * window/(nbins-1) (the exact metric's linspace grid).
@@ -257,7 +202,7 @@ def rx_power_dbm_phasor(
     # align; << 1 under destructive interference — exactly the regime where
     # the single-phasor model's 'same'-convolution truncation error blows up
     # (each spike's truncated sinusoid tail survives cancellation that the
-    # phasor sum assumes; COVERAGE_EXACT_r03 measured up to 20 dB there).
+    # phasor sum assumes; up to 20 dB was measured there).
     incoherent = jnp.sum((amp * w_k) ** 2)
     ratio = (a_re * a_re + a_im * a_im) / jnp.maximum(incoherent, 1e-300)
     ratio = jnp.where(any_hit, ratio, 1.0)

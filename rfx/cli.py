@@ -32,7 +32,7 @@ def _add_common(p: argparse.ArgumentParser, cfg):
     p.add_argument("--rx-radius", type=float, default=None)
     p.add_argument("--sample-rate", type=float, default=None, help="Hz")
     p.add_argument("--window", type=float, default=None, help="seconds")
-    p.add_argument("--backend", type=str, default=None, choices=["auto", "brute", "bvh", "pallas"])
+    p.add_argument("--backend", type=str, default=None, choices=["auto", "brute", "bvh", "triton"])
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--out", type=str, default="viz/scene.html")
     p.add_argument("--no-viz", action="store_true",
@@ -116,7 +116,7 @@ def cmd_cir(args) -> int:
             n_chunk = cfg.num_rays // args.chunks
 
             def compute_chunk(cid):
-                dirs = _sampler.sphere_directions(
+                dirs = _sampler.morton_sphere_directions(
                     _jax.random.fold_in(_jax.random.PRNGKey(cfg.seed), cid), n_chunk
                 )
                 with timer.phase("chunk"):
@@ -141,21 +141,17 @@ def cmd_cir(args) -> int:
           f"({cfg.num_rays / dt / 1e6:.1f} Mrays/s)")
 
     # Path polylines for the viewer come from a SMALL secondary trace (capped
-    # ray count, record_paths=True) so the main trace above always takes the
-    # fused fast path and never materializes the (B, N, 3) path buffer
-    # (round-3 advisor finding: the old record_paths=bool(--out) forced the
-    # scan fallback on every default CLI run). This also restores polylines
+    # ray count, record_paths=True) so the main trace above never
+    # materializes the (B, N, 3) path buffer. This also restores polylines
     # for chunked/resumed runs, where no chunk may even execute on resume.
     paths = []
     if not args.no_viz:
         from rfx import sampler as _sampler2
         import jax as _jax2
 
-        # Cap well below num_rays (round-4 advisor: at num_rays <= 262k the
-        # old min(num_rays, 262144) re-traced the ENTIRE batch through the
-        # ~35%-slower scan path, roughly doubling small runs). A quarter of
-        # the batch (floored at 4096 rays so tiny runs still catch paths)
-        # keeps the secondary trace a small fraction of total time.
+        # Cap well below num_rays: a quarter of the batch (floored at 4096
+        # rays so tiny runs still catch paths) keeps the secondary trace a
+        # small fraction of total time.
         n_viz = min(max(cfg.num_rays // 4, 4096), 262_144, cfg.num_rays)
         viz_dirs = _sampler2.sphere_directions(
             _jax2.random.fold_in(_jax2.random.PRNGKey(cfg.seed), 7919), n_viz
@@ -193,6 +189,20 @@ def cmd_cir(args) -> int:
         if not args.serve:
             print(f"wrote {args.out}")
     return 0
+
+
+# Five viridis anchors (matplotlib's viridis at 0, .25, .5, .75, 1), RGB 0-255.
+_RAMP = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140], [94, 201, 98], [253, 231, 37]],
+                 np.float64)
+
+
+def dbm_colors(dbm, lo: float, hi: float) -> np.ndarray:
+    """(M, 3) int RGB for dBm values on a viridis-like ramp over [lo, hi];
+    -inf (nothing received) maps to the low end."""
+    frac = np.clip((np.nan_to_num(np.asarray(dbm, np.float64), neginf=lo) - lo) / (hi - lo),
+                   0.0, 1.0)
+    pos = np.linspace(0.0, 1.0, len(_RAMP))
+    return np.stack([np.interp(frac, pos, _RAMP[:, c]) for c in range(3)], axis=1).astype(int)
 
 
 def cmd_coverage(args) -> int:
@@ -234,17 +244,13 @@ def cmd_coverage(args) -> int:
         print(f"dBm range: [{dbm[finite].min():.1f}, {dbm[finite].max():.1f}], "
               f"{int(finite.sum())}/{len(dbm)} receivers reached")
 
-    # viridis dBm coloring, range per ref coverage.py:32-36
-    from matplotlib import cm
-
-    lo, hi = cfg.dbm_range
-    frac = np.clip((np.nan_to_num(dbm, neginf=lo) - lo) / (hi - lo), 0.0, 1.0)
-    colors = (np.asarray(cm.viridis(frac))[:, :3] * 255).astype(int)
-    pairs = [(grid[i], colors[i]) for i in range(grid.shape[0])]
-
     if not args.no_viz:
         from rfx.viz import visualize
 
+        # viridis-like dBm coloring, range per ref coverage.py:32-36
+        lo, hi = cfg.dbm_range
+        colors = dbm_colors(dbm, lo, hi)
+        pairs = [(grid[i], colors[i]) for i in range(grid.shape[0])]
         visualize(
             mesh=mesh, tx_pos=cfg.tx_pos, point_color_pairs=pairs,
             out_path=args.out, port=args.port, serve=args.serve,
@@ -258,7 +264,7 @@ def cmd_coverage(args) -> int:
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="rfx", description="TPU-native RF ray tracer")
+    parser = argparse.ArgumentParser(prog="rfx", description="differentiable RF ray tracer")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_cir = sub.add_parser("cir", help="single-receiver channel impulse response (ref main.py)")
@@ -284,6 +290,9 @@ def main(argv=None) -> int:
     p_cov.set_defaults(fn=cmd_coverage)
 
     args = parser.parse_args(argv)
+    from rfx.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -53,7 +53,7 @@ class TraceConfig:
     n1: float = 5.0
     n2: float = 1.0
     rx_mode: str = "analytic"  # 'icosphere' for exact reference tessellation
-    backend: str = "auto"  # 'brute' | 'bvh' | 'pallas' | 'auto'
+    backend: str = "auto"  # 'brute' | 'bvh' | 'triton' | 'auto'
     seed: int = 0
 
     def to_json(self) -> str:
@@ -73,6 +73,7 @@ class CoverageConfig(TraceConfig):
     100 ns window; dBm color range [-130, -70])."""
 
     scene: str = "room"
+    tx_pos: tuple[float, float, float] = (3.0, 2.0, 2.0)  # inside the room (README example)
     num_rays: int = 1_000_000
     max_bounces: int = 2
     sample_window_s: float = 100e-9

@@ -84,7 +84,7 @@ def _rx_ir_from_segments(segs: EnvSegments, rx_center, rx_radius, *, tx_power, n
 @partial(
     jax.jit,
     static_argnames=(
-        "max_bounces", "nbins", "num_rays", "rx_batch", "env_hit", "soft", "engine",
+        "max_bounces", "nbins", "num_rays", "rx_batch", "env_hit", "soft",
         "light_speed_mps", "sample_rate_hz", "rx_mode",
     ),
 )
@@ -107,26 +107,17 @@ def coverage_irs(
     env_hit=None,
     active=None,
     soft: bool = False,
-    engine: str = "auto",
     rx_mode: str = "analytic",
 ):
     """(M, nbins) impulse responses for M receiver spheres from one trace.
 
     rx_mode: 'analytic' (exact sphere, the fast default) or 'icosphere' (the
     reference's 80-face tessellation, ref tracer.py:26-30 — strict geometric
-    parity mode; map engine only, markedly slower: 80 Moller-Trumbore tests
-    per segment per receiver).
+    parity mode, markedly slower: 80 Moller-Trumbore tests per segment per
+    receiver).
 
-    engine:
-      'map'     — vmapped batches of `rx_batch` receivers under lax.map; each
-                  receiver's histogram is an XLA scatter/one-hot-matmul.
-                  Differentiable; required for soft binning.
-      'batched' — the fused Pallas coverage kernel (rfx.ops.pallas_coverage):
-                  sphere test -> first-capture -> binning -> MXU histogram for
-                  8 receivers per tile, one-hot operands never leave VMEM.
-                  Forward-only, hard binning. ~20x faster at reference scale
-                  (2048 RX x 1M rays).
-      'auto'    — 'batched' on TPU when soft=False, else 'map'.
+    Receivers run in vmapped batches of `rx_batch` under lax.map; each
+    receiver's histogram is an XLA scatter-add. Differentiable.
 
     `soft=True` uses linear-interp delay binning so d(IR)/d(distance) is
     nonzero (the inverse solver's mode).
@@ -138,39 +129,16 @@ def coverage_irs(
     return _irs_from_segments(
         segs, rx_centers, rx_radius, nbins=nbins, num_rays=num_rays,
         light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-        tx_power=tx_power, rx_batch=rx_batch, soft=soft, engine=engine,
-        rx_mode=rx_mode,
+        tx_power=tx_power, rx_batch=rx_batch, soft=soft, rx_mode=rx_mode,
     )
-
-
-def _resolve_engine(engine: str, *, soft: bool, rx_mode: str) -> str:
-    if engine == "auto":
-        # Strictly TPU: the batched kernel is Mosaic-only; any other backend
-        # (CPU, GPU) must take the portable map engine.
-        on_tpu = jax.devices()[0].platform == "tpu"
-        return "batched" if (on_tpu and not soft and rx_mode == "analytic") else "map"
-    return engine
 
 
 def _irs_from_segments(
     segs: EnvSegments, rx_centers, rx_radius, *, nbins, num_rays,
-    light_speed_mps, sample_rate_hz, tx_power, rx_batch, soft, engine, rx_mode,
+    light_speed_mps, sample_rate_hz, tx_power, rx_batch, soft, rx_mode,
 ):
     """Traceable post-trace half of coverage_irs (shared with the hybrid
     metric, which reuses the fast pass's segments instead of re-tracing)."""
-    engine = _resolve_engine(engine, soft=soft, rx_mode=rx_mode)
-    if engine == "batched":
-        if soft:
-            raise ValueError("engine='batched' supports hard binning only")
-        if rx_mode != "analytic":
-            raise ValueError("engine='batched' supports the analytic receiver only")
-        from rfx.ops.pallas_coverage import coverage_hist_pallas
-
-        scaled = segs._replace(amplitude=segs.amplitude * (tx_power / num_rays))
-        return coverage_hist_pallas(
-            scaled, rx_centers, rx_radius, nbins=nbins,
-            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-        )
     m = rx_centers.shape[0]
     pad = (-m) % rx_batch
     centers = jnp.concatenate([rx_centers, jnp.zeros((pad, 3), rx_centers.dtype)]) if pad else rx_centers
@@ -194,7 +162,7 @@ def _irs_from_segments(
 _irs_from_segments_jit = jax.jit(
     _irs_from_segments,
     static_argnames=("nbins", "num_rays", "light_speed_mps", "sample_rate_hz",
-                     "tx_power", "rx_batch", "soft", "engine", "rx_mode"),
+                     "tx_power", "rx_batch", "soft", "rx_mode"),
 )
 
 
@@ -273,10 +241,9 @@ def coverage_dbm_fast(
 ):
     """(M,) per-receiver dBm straight from the shared env segments via the
     phasor identity (see rfx.cir.rx_power_dbm_phasor) — no per-receiver IR,
-    no scatter-add. Measured 103x faster than the round-1 exact path at
-    2048 receivers x 1M rays on v5e.
+    no scatter-add.
 
-    Accuracy vs the exact metric (measured, COVERAGE_EXACT_r03, 2048 RX):
+    Accuracy vs the exact metric (measured at 2048 RX on the reference room):
     median 0.27 dB, p95 1.3 dB, **max 20 dB** at receivers with strong
     destructive interference — the exact metric's 'same'-mode convolution
     truncates each spike's sinusoid differently, so non-overlapping tails
@@ -382,14 +349,14 @@ def coverage_dbm_hybrid(
     exact_fallback_frac: float = 0.15,
 ):
     """Phasor fast path with an exact fallback for phasor-untrustworthy
-    receivers (bounded hybrid, round-3 VERDICT #5).
+    receivers (bounded hybrid).
 
     A receiver is re-evaluated through the exact per-receiver IR +
     convolution metric when either diagnostic says the single-phasor model is
     outside its trust region:
       - coherent/incoherent ratio < cancel_threshold (strong destructive
         interference: truncation tails survive cancellation — measured up to
-        20 dB error, COVERAGE_EXACT_r03), or
+        20 dB error), or
       - power-weighted delay spread > spread_threshold_s (well-separated
         spikes: the sqrt(s_i s_j) cross-support approximation degrades —
         measured up to ~2 dB without any cancellation).
@@ -399,13 +366,12 @@ def coverage_dbm_hybrid(
     review finding — the first version re-traced). Returns ((M,) dBm,
     n_flagged). Host-side driver (dynamic receiver selection), not jittable.
 
-    Auto-selection (round-4 VERDICT #5): when the flag rate exceeds
-    `exact_fallback_frac`, the per-receiver exact re-evaluation would cost
-    about as much as the full exact metric (measured: 52% flagged on the
-    reference room sweep made the hybrid SLOWER than exact-everywhere,
-    HYBRID_r04), so every receiver is re-evaluated exactly — same trace, no
-    extra walk — and the result carries the exact metric's guarantee instead
-    of the 1.8 dB hybrid bound. n_flagged still reports the diagnostic count.
+    Auto-selection: when the flag rate exceeds `exact_fallback_frac`, the
+    per-receiver exact re-evaluation would cost about as much as the full
+    exact metric (52% of the reference room sweep is flagged), so every
+    receiver is re-evaluated exactly — same trace, no extra walk — and the
+    result carries the exact metric's guarantee instead of the 1.8 dB hybrid
+    bound. n_flagged still reports the diagnostic count.
     """
     segs = _trace_env_jit(
         scene, jnp.asarray(tx_pos, jnp.float32), directions,
@@ -433,7 +399,7 @@ def coverage_dbm_hybrid(
             nbins=nbins, num_rays=num_rays,
             light_speed_mps=float(light_speed_mps),
             sample_rate_hz=float(sample_rate_hz), tx_power=float(tx_power),
-            rx_batch=rx_batch, soft=False, engine="auto", rx_mode="analytic",
+            rx_batch=rx_batch, soft=False, rx_mode="analytic",
         )
         exact_dbm, _ = rx_power_dbm(irs, sample_window_s, carrier_hz)
         return np.asarray(exact_dbm), flagged.size
@@ -447,7 +413,7 @@ def coverage_dbm_hybrid(
             nbins=nbins, num_rays=num_rays,
             light_speed_mps=float(light_speed_mps),
             sample_rate_hz=float(sample_rate_hz), tx_power=float(tx_power),
-            rx_batch=rx_batch, soft=False, engine="auto", rx_mode="analytic",
+            rx_batch=rx_batch, soft=False, rx_mode="analytic",
         )
         exact_dbm, _ = rx_power_dbm(irs, sample_window_s, carrier_hz)
         dbm[flagged] = np.asarray(exact_dbm)[: flagged.size]

@@ -1,6 +1,6 @@
 """Geometry: triangle meshes, STL IO, procedural scenes, icospheres.
 
-TPU-native redesign of the reference's scene-ingestion path
+A redesign of the reference's scene-ingestion path
 (ref: tracer.py:22-30 uses trimesh STL loading + `wp.Mesh` upload). We keep a
 host-side NumPy `TriangleMesh` and derive the device-side SoA arrays
 (v0 / e1 / e2 / normals) lazily inside jit from `vertices`/`faces`, so vertex

@@ -1,7 +1,8 @@
 """BVH traversal on device (jnp while_loop, vectorised over rays).
 
-TPU-native equivalent of warp's `wp.mesh_query_ray` BVH walk
-(ref kernel.py:71,82 -> CUDA traversal inside warp-lang). All rays advance in
+The plain-XLA equivalent of warp's `wp.mesh_query_ray` BVH walk
+(ref kernel.py:71,82 -> CUDA traversal inside warp-lang), and the CPU
+reference for the GPU kernel in rfx.ops.gpu_trace. All rays advance in
 lockstep through the flat skip-pointer layout built by rfx.bvh: each ray keeps
 its own node cursor; internal nodes descend on AABB hit (cursor+1) or jump the
 skip pointer; leaves vector-test a fixed LEAF_SIZE padded triangle block.
@@ -29,9 +30,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from rfx.bvh import LEAF_SIZE, FlatBVH
-from rfx.ops.intersect import MISS, T_MIN_EPS, hit_normal_from_edges, is_hit
+from rfx.ops.intersect import (
+    HIGHEST, MISS, T_MIN_EPS, closed_form_t, hit_normal_from_edges, is_hit,
+)
 
-__all__ = ["DeviceBVH", "device_bvh", "bvh_closest_hit"]
+__all__ = ["DeviceBVH", "device_bvh", "bvh_closest_hit", "closest_hit_vjp", "live_bvh"]
 
 
 class DeviceBVH(NamedTuple):
@@ -46,34 +49,17 @@ class DeviceBVH(NamedTuple):
     tri_face: jnp.ndarray  # (P,) original face id, -1 padding
 
 
-def device_bvh(flat: FlatBVH, vertices=None, faces=None) -> DeviceBVH:
-    """Upload a host FlatBVH. When (vertices, faces) jnp arrays are given, the
-    leaf triangle SoA is re-derived by gather so vertex gradients flow through
-    leaf triangles (tri_face permutation is static)."""
-    if vertices is not None:
-        face_idx = jnp.asarray(np.maximum(flat.tri_face, 0))
-        pad = jnp.asarray(flat.tri_face < 0)
-        fv = jnp.asarray(faces)[face_idx]  # (P, 3) vertex ids
-        v0 = jnp.asarray(vertices)[fv[:, 0]]
-        v1 = jnp.asarray(vertices)[fv[:, 1]]
-        v2 = jnp.asarray(vertices)[fv[:, 2]]
-        zero = jnp.zeros_like(v0)
-        tri_v0 = jnp.where(pad[:, None], zero, v0)
-        tri_e1 = jnp.where(pad[:, None], zero, v1 - v0)
-        tri_e2 = jnp.where(pad[:, None], zero, v2 - v0)
-    else:
-        tri_v0 = jnp.asarray(flat.tri_v0)
-        tri_e1 = jnp.asarray(flat.tri_e1)
-        tri_e2 = jnp.asarray(flat.tri_e2)
+def device_bvh(flat: FlatBVH) -> DeviceBVH:
+    """Upload a host FlatBVH (see `live_bvh` for vertex-derived leaves)."""
     return DeviceBVH(
         aabb_min=jnp.asarray(flat.aabb_min),
         aabb_max=jnp.asarray(flat.aabb_max),
         tri_start=jnp.asarray(flat.tri_start),
         tri_count=jnp.asarray(flat.tri_count),
         skip=jnp.asarray(flat.skip),
-        tri_v0=tri_v0,
-        tri_e1=tri_e1,
-        tri_e2=tri_e2,
+        tri_v0=jnp.asarray(flat.tri_v0),
+        tri_e1=jnp.asarray(flat.tri_e1),
+        tri_e2=jnp.asarray(flat.tri_e2),
         tri_face=jnp.asarray(flat.tri_face),
     )
 
@@ -82,14 +68,14 @@ def _leaf_mt(o, d, v0, e1, e2, t_min):
     """Moller-Trumbore for (N, L, 3) leaf blocks against (N, 3) rays.
     Returns (N, L) t values (MISS where no hit)."""
     pvec = jnp.cross(d[:, None, :], e2)
-    det = jnp.einsum("nlj,nlj->nl", e1, pvec)
+    det = jnp.einsum("nlj,nlj->nl", e1, pvec, precision=HIGHEST)
     valid_det = jnp.abs(det) > 1e-12  # see _mt_chunk: avoid 1/det^2 overflow
     inv_det = jnp.where(valid_det, 1.0 / jnp.where(valid_det, det, 1.0), 0.0)
     tvec = o[:, None, :] - v0
-    u = jnp.einsum("nlj,nlj->nl", tvec, pvec) * inv_det
+    u = jnp.einsum("nlj,nlj->nl", tvec, pvec, precision=HIGHEST) * inv_det
     qvec = jnp.cross(tvec, e1)
-    v = jnp.einsum("nj,nlj->nl", d, qvec) * inv_det
-    t = jnp.einsum("nlj,nlj->nl", e2, qvec) * inv_det
+    v = jnp.einsum("nj,nlj->nl", d, qvec, precision=HIGHEST) * inv_det
+    t = jnp.einsum("nlj,nlj->nl", e2, qvec, precision=HIGHEST) * inv_det
     ok = valid_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
     return jnp.where(ok, t, MISS)
 
@@ -155,39 +141,27 @@ def bvh_closest_hit(o, d, bvh: DeviceBVH, t_min=T_MIN_EPS, leaf_size=LEAF_SIZE):
     return t, face
 
 
-def _closed_form_t(o, d, v0, e1, e2):
-    """Differentiable t of known-hit (ray, triangle) pairs (N, 3) each."""
-    pvec = jnp.cross(d, e2)
-    det = jnp.einsum("nj,nj->n", e1, pvec)
-    det_safe = jnp.where(jnp.abs(det) > 1e-12, det, 1.0)
-    qvec = jnp.cross(o - v0, e1)
-    return jnp.einsum("nj,nj->n", e2, qvec) / det_safe
-
-
 def _bvh_hit_fwd(o, d, bvh, t_min, leaf_size):
     t, face, tri_idx = _traverse(bvh, o, d, t_min, leaf_size)
     return (t, face), (o, d, bvh, tri_idx, t)
 
 
-def _bvh_hit_bwd(t_min, leaf_size, res, cotangents):
-    o, d, bvh, tri_idx, t = res
-    g_t, _ = cotangents  # face cotangent is symbolic-zero (int)
+def closest_hit_vjp(o, d, bvh: DeviceBVH, tri_idx, t, g_t):
+    """Straight-through backward of a BVH closest-hit query: the VJP of the
+    closed-form t of each ray's selected (padded-index) triangle. Returns
+    (go, gd, g_bvh) with triangle cotangents scattered into the BVH's leaf
+    SoA. Shared by every traversal that reports `tri_idx`."""
     gather = jnp.maximum(tri_idx, 0)
     v0 = bvh.tri_v0[gather]
     e1 = bvh.tri_e1[gather]
     e2 = bvh.tri_e2[gather]
     hit = (tri_idx >= 0) & is_hit(t)
     g = jnp.where(hit, g_t, 0.0)
-    # Sanitized non-hit lanes: parked rays overflow the t-VJP to inf and
-    # 0 x inf = NaN (round-5 flagship n1-grad bug; see pallas_trace.bwd).
+    # Sanitized non-hit lanes: parked rays (|o| ~ 1e9) overflow the t-VJP's
+    # intermediates to inf and 0 x inf = NaN.
     o_s = jnp.where(hit[:, None], o, 0.0)
     d_s = jnp.where(hit[:, None], d, 1.0)
-
-    # VJP of the closed-form t through the selected triangle only.
-    def t_of(o_, d_, v0_, e1_, e2_):
-        return _closed_form_t(o_, d_, v0_, e1_, e2_)
-
-    _, vjp = jax.vjp(t_of, o_s, d_s, v0, e1, e2)
+    _, vjp = jax.vjp(closed_form_t, o_s, d_s, v0, e1, e2)
     go, gd, gv0, ge1, ge2 = vjp(g)
 
     # Scatter triangle cotangents back into the flat SoA (padding rows dropped
@@ -212,47 +186,45 @@ def _bvh_hit_bwd(t_min, leaf_size, res, cotangents):
     return go, gd, g_bvh
 
 
+def _bvh_hit_bwd(t_min, leaf_size, res, cotangents):
+    o, d, bvh, tri_idx, t = res
+    g_t, _ = cotangents  # face cotangent is symbolic-zero (int)
+    return closest_hit_vjp(o, d, bvh, tri_idx, t, g_t)
+
+
 bvh_closest_hit.defvjp(_bvh_hit_fwd, _bvh_hit_bwd)
+
+
+def live_bvh(flat: FlatBVH, base: DeviceBVH, v0, e1, e2) -> DeviceBVH:
+    """`base` with its leaf triangle SoA re-gathered from live (original
+    face order) triangle arrays, so vertex gradients reach the leaves. The
+    leaf permutation is static; node boxes stay host-built (see the module
+    caveat)."""
+    face_idx = np.maximum(flat.tri_face, 0)
+    padj = jnp.asarray(flat.tri_face < 0)[:, None]
+    zero = jnp.float32(0.0)
+    return base._replace(
+        tri_v0=jnp.where(padj, zero, v0[face_idx]),
+        tri_e1=jnp.where(padj, zero, e1[face_idx]),
+        tri_e2=jnp.where(padj, zero, e2[face_idx]),
+    )
 
 
 def make_bvh_env_hit(flat: FlatBVH, differentiable_tris: bool = False):
     """Returns env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm) using BVH
-    traversal (nrm gathered from `normals` by hit face).
+    traversal (nrm rebuilt from the hit face's edges).
 
     The (v0, e1, e2) args of the intersector interface are ignored for hit
     *selection* (the BVH carries its own leaf-reordered copy); pass
     differentiable_tris=True to re-derive leaf triangles from scene vertices
     at call time (costlier; for vertex-gradient workloads).
     """
-    if differentiable_tris:
-        # Static permutation; gather at trace time from the live vertex array.
-        face_idx = np.maximum(flat.tri_face, 0)
-        pad = flat.tri_face < 0
-        base = device_bvh(flat)
-
-        def env_hit(o, d, v0, e1, e2, normals):
-            lv0 = v0[face_idx]
-            le1 = e1[face_idx]
-            le2 = e2[face_idx]
-            zero = jnp.zeros_like(lv0)
-            padj = jnp.asarray(pad)[:, None]
-            bvh = base._replace(
-                tri_v0=jnp.where(padj, zero, lv0),
-                tri_e1=jnp.where(padj, zero, le1),
-                tri_e2=jnp.where(padj, zero, le2),
-            )
-            t, face = bvh_closest_hit(o, d, bvh, T_MIN_EPS, flat.leaf_size)
-            # hit_normal_from_edges, NOT normals[face]: a precomputed traced
-            # normal table gathered inside the scan is miscompiled by XLA-TPU
-            # (see rfx.ops.intersect.hit_normal_from_edges).
-            return t, face, hit_normal_from_edges(e1, e2, face)
-
-        return env_hit
-
-    bvh = device_bvh(flat)
+    base = device_bvh(flat)
 
     def env_hit(o, d, v0, e1, e2, normals):
+        bvh = live_bvh(flat, base, v0, e1, e2) if differentiable_tris else base
         t, face = bvh_closest_hit(o, d, bvh, T_MIN_EPS, flat.leaf_size)
+        # hit_normal_from_edges, NOT normals[face]: see its docstring.
         return t, face, hit_normal_from_edges(e1, e2, face)
 
     return env_hit

@@ -1,13 +1,13 @@
 """Ray-primitive intersection ops (JAX/XLA compute path).
 
-TPU-native replacement for warp's `wp.mesh_query_ray` (ref kernel.py:71,82),
-which on the reference stack is a CUDA BVH traversal + watertight
-Moller-Trumbore inside the warp-lang dependency. Here:
+Replacement for warp's `wp.mesh_query_ray` (ref kernel.py:71,82), which on
+the reference stack is a CUDA BVH traversal + watertight Moller-Trumbore
+inside the warp-lang dependency. Here:
 
 - `ray_mesh_closest_hit_brute`: fully vectorised Moller-Trumbore over all
   triangles, chunked over rays so the (rays x tris) intermediates stay inside
   a bounded footprint. This is the gold path (small meshes: room = 44 tris)
-  and the differentiable reference for the BVH/Pallas backends.
+  and the differentiable reference for the BVH backends.
 - `ray_sphere_hit`: closed-form sphere intersection for the receiver in
   "analytic" RX mode (the reference tessellates an 80-face icosphere,
   ref tracer.py:26-30; we keep that mode for parity and offer the exact
@@ -15,6 +15,10 @@ Moller-Trumbore inside the warp-lang dependency. Here:
 
 All hit queries use an explicit `t_min` epsilon for self-intersection
 avoidance (the reference delegates this to warp internals; SURVEY.md 2.2).
+
+Every contraction asks for Precision.HIGHEST: XLA may hand an einsum to
+cuBLAS, which would otherwise be free to run f32 in TF32 and flip hits near
+triangle edges.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+HIGHEST = jax.lax.Precision.HIGHEST
 T_MIN_EPS = 1e-4  # must match oracle.oracle.T_MIN_EPS
 T_MAX = 1.0e6
 # Finite miss sentinel: inf arithmetic under XLA's fused/optimized backward
-# passes produces NaNs on TPU (observed: jit(grad(trace)) NaN while the
-# de-optimized path is clean), so misses are a large finite t instead.
+# passes produced NaNs under the accelerator compiler this code was first
+# built for (jit(grad(trace)) NaN while the de-optimized path was clean), so
+# misses are a large finite t instead.
 MISS = jnp.float32(1e30)
 MISS_THRESHOLD = 1e29
 
@@ -45,14 +51,12 @@ def hit_normal_from_edges(e1, e2, face):
 
     Deliberately NOT `normals[face]` on a precomputed normal table: when the
     normal table is itself a traced value (vertices differentiable, so
-    mesh_soa runs inside jit), XLA-TPU MISCOMPILES the gather-of-computed-
-    normals inside a scan body — the flagship trace then reports ~20x the
-    true capture count (measured: 788 vs the correct 40 captures on the
-    grid-48 terrain; CPU and interpret mode are clean, and
-    lax.optimization_barrier does NOT prevent it). Deriving the normal from
-    the gathered edges compiles correctly, costs one cross + rsqrt per ray,
-    and keeps vertex gradients flowing through the same algebra the Pallas
-    backward uses.
+    mesh_soa runs inside jit), the accelerator compiler this code was first
+    built for miscompiled the gather-of-computed-normals inside a scan body (about
+    20x the true capture count on a grid-48 terrain; CPU was clean).
+    Deriving the normal from the gathered edges is correct everywhere, costs
+    one cross + rsqrt per ray, and keeps vertex gradients flowing. Whether
+    the GPU needs it is open (ROADMAP C3).
     """
     f = jnp.clip(face, 0, None)
     n = jnp.cross(e1[f], e2[f])
@@ -79,7 +83,7 @@ def _mt_chunk(o, d, v0, e1, e2, t_min, t_max):
     """
     # (C, T, 3) intermediates; caller bounds C*T.
     pvec = jnp.cross(d[:, None, :], e2[None, :, :])
-    det = jnp.einsum("tj,ctj->ct", e1, pvec)
+    det = jnp.einsum("tj,ctj->ct", e1, pvec, precision=HIGHEST)
     # Near-parallel guard with a finite threshold, not det != 0: for tiny
     # nonzero dets the VJP of 1/det is -1/det^2, which overflows f32 to inf
     # and poisons the (zero) cotangent with NaN under jit. 1e-12 keeps
@@ -88,10 +92,10 @@ def _mt_chunk(o, d, v0, e1, e2, t_min, t_max):
     det_safe = jnp.where(valid_det, det, 1.0)
     inv_det = jnp.where(valid_det, 1.0 / det_safe, 0.0)
     tvec = o[:, None, :] - v0[None, :, :]
-    u = jnp.einsum("ctj,ctj->ct", tvec, pvec) * inv_det
+    u = jnp.einsum("ctj,ctj->ct", tvec, pvec, precision=HIGHEST) * inv_det
     qvec = jnp.cross(tvec, e1[None, :, :])
-    v = jnp.einsum("cj,ctj->ct", d, qvec) * inv_det
-    t = jnp.einsum("tj,ctj->ct", e2, qvec) * inv_det
+    v = jnp.einsum("cj,ctj->ct", d, qvec, precision=HIGHEST) * inv_det
+    t = jnp.einsum("tj,ctj->ct", e2, qvec, precision=HIGHEST) * inv_det
     ok = valid_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     ok &= (t > t_min) & (t < t_max)
     t = jnp.where(ok, t, MISS)
@@ -118,10 +122,10 @@ def closed_form_t(o, d, v0, e1, e2):
     (N, 3). Used by intersector backward passes: hit *selection* is
     straight-through, t is exact for the selected face."""
     pvec = jnp.cross(d, e2)
-    det = jnp.einsum("nj,nj->n", e1, pvec)
+    det = jnp.einsum("nj,nj->n", e1, pvec, precision=HIGHEST)
     det_safe = jnp.where(jnp.abs(det) > 1e-12, det, 1.0)
     qvec = jnp.cross(o - v0, e1)
-    return jnp.einsum("nj,nj->n", e2, qvec) / det_safe
+    return jnp.einsum("nj,nj->n", e2, qvec, precision=HIGHEST) / det_safe
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7))
@@ -148,10 +152,8 @@ def ray_mesh_closest_hit_brute(
     Carries a custom VJP: the forward picks the face (non-differentiable
     argmin selection, straight-through), the backward re-evaluates the
     selected face's t in closed form and scatters cotangents to the ray and
-    triangle arrays. Besides being far cheaper than rematerialising the
-    (rays x tris) intermediates, this sidesteps an XLA-TPU fusion bug where
-    the autodiff backward of the full argmin graph under jit produces NaN
-    (CPU and op-by-op TPU execution are clean; observed on TPU v5e).
+    triangle arrays — far cheaper than rematerialising the (rays x tris)
+    intermediates.
     """
     return _brute_custom(o, d, v0, e1, e2, float(t_min), float(t_max), int(ray_chunk))
 
@@ -168,8 +170,7 @@ def _brute_bwd(t_min, t_max, ray_chunk, res, cotangents):
     hit = (face >= 0) & is_hit(t)
     g = jnp.where(hit, g_t, 0.0)
     # Evaluate the VJP at sanitized non-hit lanes: parked rays (|o| ~ 1e9)
-    # overflow the derivative's intermediates to inf and 0 x inf = NaN
-    # (round-5 flagship n1-grad bug; see pallas_trace.bwd).
+    # overflow the derivative's intermediates to inf and 0 x inf = NaN.
     o_s = jnp.where(hit[:, None], o, 0.0)
     d_s = jnp.where(hit[:, None], d, 1.0)
 
@@ -190,8 +191,8 @@ _brute_custom.defvjp(_brute_fwd, _brute_bwd)
 
 def _sphere_hit_fwd_only(o, d, center, radius, t_min):
     oc = o - center[None, :]
-    b = jnp.einsum("nj,nj->n", oc, d)
-    c = jnp.einsum("nj,nj->n", oc, oc) - radius * radius
+    b = jnp.einsum("nj,nj->n", oc, d, precision=HIGHEST)
+    c = jnp.einsum("nj,nj->n", oc, oc, precision=HIGHEST) - radius * radius
     disc = b * b - c
     # Double-where: sqrt'(0) is inf; keep the miss branch out of the VJP.
     # Exact tangent hits (disc == 0) count as misses — measure-zero set.
@@ -218,9 +219,7 @@ def ray_sphere_hit(o, d, center, radius, t_min=T_MIN_EPS):
         dt/do = -q / (q.d),  dt/dd = -t q / (q.d),  dt/dC = q / (q.d),
         dt/dr = r / (q.d).
     The q.d denominator is clamped away from zero (near-tangent hits), and the
-    backward never touches the sqrt/discriminant graph — autodiff through the
-    forward triggers an XLA-TPU fusion bug (NaN grads under jit when fused
-    with a surrounding trace graph; clean on CPU and op-by-op)."""
+    backward never touches the sqrt/discriminant graph."""
     return _sphere_custom(
         o, d, jnp.asarray(center), jnp.asarray(radius, jnp.float32), float(t_min)
     )
@@ -236,7 +235,7 @@ def _sphere_bwd(t_min, res, g):
     hit = is_hit(t)
     t_safe = jnp.where(hit, t, 0.0)
     q = o + t_safe[:, None] * d - center[None, :]
-    qd = jnp.einsum("nj,nj->n", q, d)
+    qd = jnp.einsum("nj,nj->n", q, d, precision=HIGHEST)
     # |q.d| = r*|cos(theta_inc)| at a hit; clamp for grazing incidence.
     mag = jnp.maximum(jnp.abs(qd), 1e-6 * jnp.maximum(radius, 1e-6))
     qd_safe = jnp.where(qd < 0.0, -mag, mag)
@@ -251,53 +250,68 @@ def _sphere_bwd(t_min, res, g):
 _sphere_custom.defvjp(_sphere_fwd, _sphere_bwd)
 
 
-def make_env_intersector(backend: str = "brute", *, ray_chunk: int = 65536, **kwargs):
+# Rays x triangles elements per brute-force chunk: bounds the (chunk, T, 3)
+# Moller-Trumbore intermediates at a few hundred MB whatever the mesh size.
+BRUTE_CHUNK_ELEMS = 1 << 25
+
+
+def brute_ray_chunk(n_rays: int, n_tris: int) -> int:
+    """Ray chunk for the brute intersector: the largest power of two with
+    chunk * n_tris <= BRUTE_CHUNK_ELEMS, or 0 (no chunking) when the whole
+    batch fits."""
+    chunk = max(1, BRUTE_CHUNK_ELEMS // max(n_tris, 1))
+    chunk = 1 << (chunk.bit_length() - 1)
+    return 0 if n_rays <= chunk else chunk
+
+
+def _brute_env_hit(o, d, v0, e1, e2, normals):
+    n = o.shape[0]
+    chunk = brute_ray_chunk(n, v0.shape[0])
+    pad = (-n) % chunk if chunk else 0
+    if pad:
+        # Dead padding rays, sliced off below.
+        o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
+        d = jnp.concatenate([d, jnp.broadcast_to(jnp.asarray([0.0, 0.0, 1.0], d.dtype), (pad, 3))])
+    # positional: custom_vjp functions reject keyword arguments
+    t, face = ray_mesh_closest_hit_brute(o, d, v0, e1, e2, T_MIN_EPS, T_MAX, chunk)
+    t, face = t[:n], face[:n]
+    return t, face, hit_normal_from_edges(e1, e2, face)
+
+
+BACKENDS = ("brute", "bvh", "triton")
+
+
+def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
+                         differentiable_tris: bool = False, interpret: bool = False):
     """Factory: returns env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm).
 
     `nrm` is the unit geometric normal of the hit face ((N, 3); zeros on
-    miss are NOT guaranteed — callers mask by hit). The Pallas backend folds
-    it inside the kernel; jnp backends gather from `normals` (an N-sized
-    gather — fine on CPU and for small meshes, ~21 ms at 5M rays on the TPU,
-    which is why the hot path uses the kernel fold).
+    miss are NOT guaranteed — callers mask by hit). The GPU kernel folds it
+    in-kernel; the jnp backends rebuild it from the hit face's edges.
 
     backend:
       'brute'  — jnp Moller-Trumbore over all triangles (gold path, small meshes)
       'bvh'    — flat skip-pointer BVH, jnp while_loop traversal (needs mesh=)
-      'pallas' — BVH traversal as a Pallas TPU kernel (needs mesh=)
+      'triton' — the same BVH walked one lane per ray by a Pallas-Triton GPU
+                 kernel (needs mesh=; `interpret=True` runs it on the CPU)
+
+    `differentiable_tris=True` (BVH backends) re-derives the leaf triangles
+    from the live scene arrays so vertex gradients flow.
     """
     if backend == "brute":
-        def env_hit(o, d, v0, e1, e2, normals):
-            chunk = ray_chunk if o.shape[0] % ray_chunk == 0 else 0
-            # positional: custom_vjp functions reject keyword arguments
-            t, face = ray_mesh_closest_hit_brute(o, d, v0, e1, e2, T_MIN_EPS, T_MAX, chunk)
-            return t, face, hit_normal_from_edges(e1, e2, face)
+        return _brute_env_hit
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown intersector backend: {backend}")
+    if mesh is None and flat_bvh is None:
+        raise ValueError(f"backend '{backend}' requires mesh=TriangleMesh")
+    from rfx.bvh import build_bvh
 
-        return env_hit
-    if backend in ("bvh", "pallas"):
-        mesh = kwargs.get("mesh")
-        if mesh is None and kwargs.get("flat_bvh") is None:
-            raise ValueError(f"backend '{backend}' requires mesh=TriangleMesh")
-        from rfx.bvh import build_bvh
+    flat = flat_bvh or build_bvh(mesh)
+    if backend == "bvh":
+        from rfx.ops.bvh_traverse import make_bvh_env_hit
 
-        if backend == "bvh":
-            from rfx.ops.bvh_traverse import make_bvh_env_hit
+        return make_bvh_env_hit(flat, differentiable_tris=differentiable_tris)
+    from rfx.ops.gpu_trace import make_triton_env_hit
 
-            flat = kwargs.get("flat_bvh") or build_bvh(mesh)
-            return make_bvh_env_hit(
-                flat, differentiable_tris=kwargs.get("differentiable_tris", False)
-            )
-        from rfx.ops.pallas_trace import make_pallas_env_hit
-
-        # Pass the mesh through when no prebuilt BVH was supplied:
-        # make_pallas_env_hit picks the leaf size itself (16 for VMEM-resident
-        # meshes, 128 for >512k-tri HBM-streaming ones — prebuilding leaf-16
-        # here would reject every large mesh).
-        flat = kwargs.get("flat_bvh") or mesh
-        pallas_kw = {
-            k: kwargs[k]
-            for k in ("interpret", "node_test", "differentiable_tris", "tile_rays",
-                      "k_spec", "force_stream")
-            if k in kwargs
-        }
-        return make_pallas_env_hit(flat, **pallas_kw)
-    raise ValueError(f"unknown intersector backend: {backend}")
+    return make_triton_env_hit(flat, differentiable_tris=differentiable_tris,
+                               interpret=interpret)

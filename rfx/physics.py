@@ -2,15 +2,15 @@
 
 The reference computes all of this on the host in a Python loop over received
 paths (ref tracer.py:102-117) with a scalar Fresnel routine (ref
-tracer.py:32-61). Here the same math runs vectorised on the TPU inside the
-bounce scan, and is differentiable w.r.t. the refractive indices.
+tracer.py:32-61). Here the same math runs vectorised on the device inside
+the bounce scan, and is differentiable w.r.t. the refractive indices.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-__all__ = ["reflect", "bend_angle", "fresnel_bounce_amplitude", "reflect_p", "bend_angle_p"]
+__all__ = ["reflect", "bend_angle", "fresnel_bounce_amplitude"]
 
 
 def reflect(d: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
@@ -50,15 +50,3 @@ def fresnel_bounce_amplitude(angle_between, n1=5.0, n2=1.0):
     out = -amp
     out = jnp.where(valid & (denom != 0.0) & ~jnp.isnan(angle_between), out, 0.0)
     return out
-
-
-def reflect_p(d3: jnp.ndarray, n3: jnp.ndarray) -> jnp.ndarray:
-    """`reflect` in planes layout: (3, N) components-first arrays (the bounce
-    loop's TPU-native layout — no (N, 3) minor-axis padding, no transposes)."""
-    return d3 - 2.0 * jnp.sum(d3 * n3, axis=0, keepdims=True) * n3
-
-
-def bend_angle_p(d_in3: jnp.ndarray, d_out3: jnp.ndarray) -> jnp.ndarray:
-    """`bend_angle` in planes layout: (3, N) inputs, (N,) output."""
-    cosang = jnp.sum(d_in3 * d_out3, axis=0)
-    return jnp.arccos(jnp.clip(cosang, -1.0 + 1e-6, 1.0 - 1e-6))

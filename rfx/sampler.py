@@ -1,9 +1,9 @@
 """Ray direction sampling.
 
-TPU-native replacement for warp's per-thread counter-based PRNG + unit-sphere
-sampling (ref kernel.py:51-52): a threefry key folded over the ray batch, with
-the standard (z, phi) uniform-sphere construction. Explicit direction arrays
-can always be injected instead, so oracle and TPU runs trace identical rays
+Replacement for warp's per-thread counter-based PRNG + unit-sphere sampling
+(ref kernel.py:51-52): a threefry key folded over the ray batch, with the
+standard (z, phi) uniform-sphere construction. Explicit direction arrays can
+always be injected instead, so oracle and device runs trace identical rays
 (SURVEY.md 2.2: the Warp PRNG is deliberately not replicated bit-exactly).
 """
 
@@ -64,9 +64,9 @@ def direction_morton_keys(directions: jnp.ndarray, bits: int = 10) -> jnp.ndarra
     """Morton code of each direction's (z, phi) cell on a 2^bits lattice.
 
     Sorting rays by this key makes consecutive rays point into the same small
-    solid-angle cone — the coherence the tile-speculative Pallas traversal
-    (rfx.ops.pallas_trace) needs: an incoherent tile spans the whole sphere
-    and degenerates the BVH walk to brute force.
+    solid-angle cone, so the rays of one block of the GPU traversal kernel
+    (rfx.ops.gpu_trace) walk nearly the same nodes and their lanes diverge
+    less.
     """
     res = 1 << bits
     z = jnp.clip(directions[:, 2], -1.0, 1.0)
@@ -85,14 +85,3 @@ def morton_sphere_directions(key: jax.Array, n: int) -> jnp.ndarray:
     d = stratified_sphere_directions(key, n)
     order = jnp.argsort(direction_morton_keys(d))
     return d[order]
-
-
-def pad_directions(directions: jnp.ndarray, multiple: int) -> tuple[jnp.ndarray, int]:
-    """Pad a direction batch to a multiple (dead rays get a fixed direction and
-    are masked out by the caller via the valid count). Returns (padded, n_valid)."""
-    n = directions.shape[0]
-    rem = (-n) % multiple
-    if rem == 0:
-        return directions, n
-    pad = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0], directions.dtype), (rem, 3))
-    return jnp.concatenate([directions, pad], axis=0), n

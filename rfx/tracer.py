@@ -1,6 +1,6 @@
 """Bounce-loop tracer core (JAX, on-device, differentiable).
 
-TPU-native redesign of the reference's CUDA kernel + host physics split
+A redesign of the reference's CUDA kernel + host physics split
 (ref kernel.py:38-98 traces on-GPU, ref tracer.py:102-117 then re-walks every
 path on the host). Here a single `lax.scan` over a fixed bounce count carries
 per-ray state (position, direction, alive mask, running amplitude and path
@@ -183,9 +183,9 @@ def trace_to_rx(
 
         t_adv = jnp.where(env_bounce, t_env, 0.0)
         # Park rays that die this bounce (captured or escaped) far outside the
-        # scene: their AABB tests then miss at the BVH root, so fully-dead ray
-        # tiles short-circuit the Pallas traversal instead of re-walking the
-        # tree (the reference keeps re-querying dead rays, ref kernel.py:58-59).
+        # scene: their AABB tests then miss at the BVH root, so a dead ray's
+        # walk ends after one node instead of re-walking the tree (the
+        # reference keeps re-querying dead rays, ref kernel.py:58-59).
         new_pos = jnp.where(
             env_bounce[:, None], c["pos"] + c["dir"] * t_adv[:, None], jnp.float32(1e9)
         )
@@ -240,16 +240,13 @@ def trace_to_rx(
         )
         return c2, out
 
-    # unroll=True (round-5 miscompile workaround): with the rolled scan, the
-    # TPU-compiled BACKWARD of this loop through the differentiable-tris
-    # Pallas intersector produces garbage — non-captured rays receive large
-    # nonzero (sometimes NaN) material gradients that are mathematically
-    # zero. The same graph is correct on CPU, correct under jax_debug_nans'
-    # unfused execution, and correct when unrolled (value matches the
-    # plain-backend FD estimate to 5 digits: 611.16 vs 611.17) — the same
-    # compiled-only class as the scan-gather miscompile documented in
-    # rfx.ops.intersect.hit_normal_from_edges. max_bounces is small (<= 4 on
-    # every reference workload), so unrolling costs only compile time.
+    # unroll=True (miscompile workaround): with the rolled scan, the
+    # accelerator compiler this code was first built for produced garbage in the BACKWARD
+    # of this loop through a differentiable-tris intersector (non-captured
+    # rays got large nonzero material gradients that are mathematically
+    # zero); CPU and the unrolled form were correct. Whether the GPU needs
+    # it is open (ROADMAP C3). max_bounces is small (<= 4 on every reference
+    # workload), so unrolling costs only compile time.
     carry, ys = jax.lax.scan(step, carry0, None, length=max_bounces, unroll=True)
     return TraceResult(
         captured=carry["captured"],
@@ -307,10 +304,8 @@ def trace_env(
         )
         env_bounce = c["alive"] & env_hit_mask
         t_adv = jnp.where(env_bounce, t_env, 0.0)
-        # Park rays that die this bounce (captured or escaped) far outside the
-        # scene: their AABB tests then miss at the BVH root, so fully-dead ray
-        # tiles short-circuit the Pallas traversal instead of re-walking the
-        # tree (the reference keeps re-querying dead rays, ref kernel.py:58-59).
+        # Park rays that die this bounce far outside the scene (see
+        # trace_to_rx).
         new_pos = jnp.where(
             env_bounce[:, None], c["pos"] + c["dir"] * t_adv[:, None], jnp.float32(1e9)
         )

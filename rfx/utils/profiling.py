@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 
 import jax
 
-__all__ = ["device_trace", "PhaseTimer", "Throughput"]
+__all__ = ["device_trace", "device_time_breakdown", "PhaseTimer", "Throughput"]
 
 
 @contextlib.contextmanager
@@ -27,6 +27,54 @@ def device_trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_time_breakdown(logdir: str, kernel_name: str = "rfx_bvh_closest_hit") -> dict:
+    """Reduce the newest profiler trace under `logdir` to device times.
+
+    Reads the GPU planes' CUDA stream lines (one event per kernel or copy):
+    `busy_s` is the union of event intervals, `kernel_s` the summed
+    durations of events whose name contains `kernel_name` (the traversal
+    kernel by default), `window_s` first start to last end, and `top` the
+    ten event names with the most time. Empty when no GPU plane exists."""
+    import glob
+    import os
+
+    from jax.profiler import ProfileData
+
+    paths = sorted(glob.glob(os.path.join(logdir, "**", "*.xplane.pb"), recursive=True),
+                   key=os.path.getmtime)
+    if not paths:
+        return {}
+    spans, per_name = [], {}
+    for plane in ProfileData.from_file(paths[-1]).planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            if "Stream" not in line.name:
+                continue
+            for ev in line.events:
+                spans.append((ev.start_ns, ev.end_ns))
+                per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.duration_ns
+    if not spans:
+        return {}
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    kernel = sum(v for k, v in per_name.items() if kernel_name in k)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "window_s": (max(e for _, e in spans) - spans[0][0]) * 1e-9,
+        "busy_s": busy * 1e-9,
+        "kernel_s": kernel * 1e-9,
+        "top": [(k, v * 1e-9) for k, v in top],
+    }
 
 
 @dataclass

@@ -1,5 +1,4 @@
-"""Worker for the 2-process x 4-device inverse-solve test (round-4 VERDICT
-next #6): each OS process owns FOUR local CPU devices; the {'rays': 4,
+"""Worker for the 2-process x 4-device inverse-solve test: each OS process owns FOUR local CPU devices; the {'rays': 4,
 'rx': 2} mesh spans both processes, so one full training step (trace ->
 soft-binned coverage IRs -> loss -> grads -> adam update) runs its IR psum
 over 'rays' and loss psum over 'rx' ACROSS the process boundary — the

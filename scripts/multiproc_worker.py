@@ -2,8 +2,8 @@
 
 Each process owns one CPU device; the 'rays' mesh spans both processes, so the
 psum inside sharded_cir crosses process boundaries — a real multi-host
-collective execution of the exact code path multi-host TPU pods would run
-(SURVEY.md 2.3 multi-host runtime; VERDICT.md missing #3).
+collective execution of the code path a multi-host run takes (SURVEY.md 2.3
+multi-host runtime).
 
 Usage: python multiproc_worker.py <coordinator> <num_procs> <proc_id> <out.npy>
 """

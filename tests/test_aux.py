@@ -170,3 +170,56 @@ def test_cli_cir_profile_report(tmp_path, capsys):
     assert "profiler trace written" in text
     assert "trace:" in text  # PhaseTimer report
     assert os.path.isdir(prof) and os.listdir(prof)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir_rule(env_set, monkeypatch, tmp_path):
+    """$JAX_COMPILATION_CACHE_DIR wins and nothing else is set; otherwise a
+    fixed, git-ignored directory inside the checkout."""
+    import jax
+
+    from rfx.utils import cache
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    if env_set:
+        monkeypatch.setenv(cache.CACHE_ENV, str(tmp_path))
+        assert cache.enable_compile_cache() == str(tmp_path)
+        assert calls == []
+    else:
+        monkeypatch.delenv(cache.CACHE_ENV, raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        want = os.path.join(root, ".jax_cache")
+        assert cache.enable_compile_cache() == want == cache.compile_cache_dir()
+        assert calls == [("jax_compilation_cache_dir", want)]
+        assert ".jax_cache/" in open(os.path.join(root, ".gitignore")).read().split()
+
+
+def test_cli_coverage_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """`rfx.cli coverage --no-viz` needs no matplotlib (absent on some hosts)."""
+    import sys
+
+    from rfx.cli import main
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises
+    cfg = CoverageConfig(num_rays=2000, grid_x=(-10.0, 10.0, 10.0),
+                         grid_y=(-10.0, 10.0, 10.0), grid_z=(2.0, 8.0, 6.0))
+    path = tmp_path / "cov.json"
+    path.write_text(cfg.to_json())
+    out = tmp_path / "dbm.npy"
+    rc = main(["coverage", "--config", str(path), "--no-viz", "--save-dbm", str(out)])
+    assert rc == 0
+    arr = np.load(out)
+    assert arr.shape == (18, 4) and np.isfinite(arr[:, 3]).any()
+    assert "receivers reached" in capsys.readouterr().out
+
+
+def test_dbm_colors_ramp():
+    from rfx.cli import dbm_colors
+
+    c = dbm_colors(np.array([-np.inf, -130.0, -100.0, -70.0, 0.0]), -130.0, -70.0)
+    assert c.shape == (5, 3) and c.dtype.kind == "i"
+    np.testing.assert_array_equal(c[0], c[1])  # nothing received -> low end
+    np.testing.assert_array_equal(c[1], [68, 1, 84])
+    np.testing.assert_array_equal(c[3], c[4])  # clipped at the top
+    np.testing.assert_array_equal(c[3], [253, 231, 37])

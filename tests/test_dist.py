@@ -98,7 +98,7 @@ def test_gradients_flow_through_shard_map(box_room, eight_devices):
 
 
 def test_inverse_step_collective_volume(box_room, eight_devices):
-    """HLO-inspection invariant (round-4 VERDICT next #6): one full sharded
+    """HLO-inspection invariant: one full sharded
     inverse-solve step must communicate ONLY via all-reduce, and only:
       - the partial-IR psum over 'rays' (f32 (M/rx_shards, nbins)) twice —
         once forward, once in the backward's recompute — and

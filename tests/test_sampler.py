@@ -1,14 +1,12 @@
 """Direction sampling: uniformity of the stratified/Morton samplers and the
-coherence property the Pallas traversal relies on (rfx.ops.pallas_trace:
+coherence property the GPU traversal relies on (rfx.ops.gpu_trace:
 consecutive rays must form tight direction cones)."""
 
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 
 from rfx import sampler
-from rfx.ops.pallas_trace import tile_cones
 
 
 def _uniformity_checks(d):
@@ -55,43 +53,3 @@ def test_morton_directions_uniform_and_coherent():
     mp /= np.maximum(np.linalg.norm(mp, axis=1, keepdims=True), 1e-9)
     cos_plain = np.einsum("tj,tkj->tk", mp, dp).mean()
     assert cos_plain < 0.5  # sanity: unsorted tiles are incoherent
-
-
-def test_tile_cones_bound_their_rays():
-    """Every (alive) ray must lie inside its tile's cone — the traversal's
-    conservativeness depends on it."""
-    n = 8192
-    d = sampler.morton_sphere_directions(jax.random.PRNGKey(3), n)
-    o = jnp.asarray(np.random.default_rng(0).uniform(-5, 5, (n, 3)), jnp.float32)
-    tiles = n // 1024
-    oT = o.T.reshape(3, tiles, 8, 128)
-    dT = d.T.reshape(3, tiles, 8, 128)
-    cone = np.asarray(tile_cones(oT, dT))  # (16, tiles)
-    apex, r0 = cone[0:3], cone[3]
-    axis, c, s = cone[4:7], cone[7], cone[8]
-    on = np.asarray(o).reshape(tiles, 1024, 3)
-    dn = np.asarray(d).reshape(tiles, 1024, 3)
-    # apex sphere contains every origin
-    dist = np.linalg.norm(on - apex.T[:, None, :], axis=2)
-    assert np.all(dist <= r0[:, None] + 1e-3)
-    # cone half-angle contains every direction
-    cosd = np.einsum("tj,tkj->tk", axis.T, dn)
-    assert np.all(cosd >= c[:, None] - 1e-5)
-    assert np.allclose(s, np.sqrt(np.maximum(1 - np.minimum(c, 1.0) ** 2, 0)), atol=1e-5)
-
-
-def test_tile_cones_dead_and_mixed_tiles():
-    from rfx.ops.pallas_trace import DEAD_RAY_POS
-
-    n = 2048
-    d = sampler.sphere_directions(jax.random.PRNGKey(4), n)
-    o = np.zeros((n, 3), np.float32)
-    o[:1024] = 1e9  # first tile fully parked
-    o[1024:1536] = 1e9  # second tile half parked
-    oT = jnp.asarray(o).T.reshape(3, 2, 8, 128)
-    dT = d.T.reshape(3, 2, 8, 128)
-    cone = np.asarray(tile_cones(oT, dT))
-    assert cone[7, 0] > 1.5  # dead-tile sentinel: never hits
-    assert cone[7, 1] <= 1.0  # mixed tile still has a live cone
-    # live cone of the mixed tile must bound its live rays only
-    assert cone[3, 1] < 1.0  # apex radius from live origins (all zero)
